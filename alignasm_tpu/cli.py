@@ -13,7 +13,9 @@ engine, also behind ``--resume`` and ``-t N`` process pooling).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import json
 import os
 import sys
 import time
@@ -24,7 +26,8 @@ from alignasm_tpu.io.paf import merge_alt_paf, read_paf, write_outputs
 
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        "alignasm_tpu", description="TPU-native assembly alignment engine"
+        "alignasm_tpu",
+        description="Assembly alignment engine with a JAX device path"
     )
     p.add_argument("paf_loc", metavar="PAF_LOC", help="Location of PAF file")
     p.add_argument("-t", "--thread", type=int, default=1, metavar="THREAD",
@@ -46,8 +49,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "reference engine; tpu: batched device kernels")
     p.add_argument("--progress", action="store_true")
     p.add_argument("--profile", metavar="DIR",
-                   help="write a jax.profiler trace (tpu engine) and phase "
-                        "timings to DIR")
+                   help="write a jax.profiler trace of the solve to DIR "
+                        "(tpu engine: also its phase stats, stats.json)")
     p.add_argument("--resume", metavar="JOURNAL",
                    help="journal file for per-contig checkpoint/resume "
                         "(works with every --engine)")
@@ -72,6 +75,16 @@ def _progress_bar(width: int = 40):
         sys.stderr.flush()
 
     return tick
+
+
+def _profiled(trace_dir):
+    """jax.profiler trace of the enclosed solve into ``trace_dir``."""
+    if not trace_dir:
+        return contextlib.nullcontext()
+    import jax
+
+    os.makedirs(trace_dir, exist_ok=True)
+    return jax.profiler.trace(trace_dir)
 
 
 def output_paths(paf_loc: str):
@@ -135,11 +148,16 @@ def run(argv=None) -> int:
 
         out_p, alt_p, all_p = output_paths(args.paf_loc)
         try:
-            solve_dataset_tpu(
-                None, cfg, src_paths=(args.paf_loc, args.alt or None),
-                write_prefix=out_p[: -len(".aln.paf")],
-            )
+            with _profiled(args.profile):
+                solve_dataset_tpu(
+                    None, cfg, src_paths=(args.paf_loc, args.alt or None),
+                    write_prefix=out_p[: -len(".aln.paf")],
+                )
             stats = solve_dataset_tpu.last_stats
+            if args.profile:
+                with open(os.path.join(args.profile, "stats.json"),
+                          "w") as fh:
+                    json.dump(stats, fh, indent=1, default=str)
             if args.progress:
                 print(f"device engine stats: {stats}")
             elapsed = time.perf_counter() - t0
@@ -157,13 +175,8 @@ def run(argv=None) -> int:
         merge_alt_paf(dataset, args.alt, cfg.alt_baseline)
     print("File read complete")
 
-    profile_ctx = None
-    if args.profile:
-        import jax
-
-        os.makedirs(args.profile, exist_ok=True)
-        profile_ctx = jax.profiler.trace(args.profile)
-        profile_ctx.__enter__()
+    profile_ctx = _profiled(args.profile)
+    profile_ctx.__enter__()
 
     if args.resume:
         from alignasm_tpu.runtime.checkpoint import solve_dataset_resumable
@@ -194,8 +207,7 @@ def run(argv=None) -> int:
         if bar is not None:
             print(file=sys.stderr)
 
-    if profile_ctx is not None:
-        profile_ctx.__exit__(None, None, None)
+    profile_ctx.__exit__(None, None, None)
 
     print("Write output PAF file")
     out_p, alt_p, all_p = output_paths(args.paf_loc)

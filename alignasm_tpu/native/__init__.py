@@ -102,7 +102,7 @@ def _ensure_lib():
     """Build + dlopen the library and register the numpy-free ABI — the
     fast-start subset (native.run / run_shard / append_shard) used by
     the CLI native path and every multihost rank.  Importing numpy
-    costs ~0.26 s of process startup, which multiplied across pod ranks
+    adds to every process's start-up, which multiplied across ranks
     dominates small jobs; the shard engine never needs it."""
     global _lib
     if _lib is None:
@@ -267,11 +267,12 @@ def get_lib():
 
 def tune_heap() -> None:
     """Raise glibc's mmap/trim/top-pad thresholds so freed parse/graph
-    memory stays mapped (idempotent).  The hypervisor taxes every
-    demand fault ~50-500x the bulk-populate cost, so pages should fault
-    once per process, not once per run — see heap.cc.  The native entry
-    points apply this themselves; kept for callers that allocate big
-    NumPy/tunnel buffers before first touching the library."""
+    memory stays mapped (idempotent).  Where the host charges demand
+    faults far above the bulk-populate cost (virtual machines with
+    dirty-page tracking), pages should fault once per process, not once
+    per run — see heap.cc.  The native entry points apply this
+    themselves; kept for callers that allocate big NumPy buffers before
+    first touching the library."""
     _ensure_lib().aln_tune_heap()
 
 

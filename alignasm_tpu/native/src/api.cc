@@ -398,10 +398,10 @@ int aln_append_shard(const char *out_prefix, const char *shard_path,
                 std::string out_path = std::string(out_prefix) + sfx[s];
                 long long left = header[7 + s];
                 // fast path: in-kernel copy (the append sits on rank
-                // 0's critical path right after the barrier; userspace
-                // double-buffering cost ~25-40 ms per 50 MB shard on
-                // tmpfs).  copy_file_range rejects O_APPEND outputs,
-                // so seek the end explicitly.
+                // 0's critical path right after the barrier, and
+                // userspace double-buffering copies every byte twice).
+                // copy_file_range rejects O_APPEND outputs, so seek the
+                // end explicitly.
                 int ifd = ::open(shard_path, O_RDONLY);
                 int ofd = ::open(out_path.c_str(),
                                  O_WRONLY | O_CREAT, 0644);

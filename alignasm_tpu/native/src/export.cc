@@ -242,8 +242,8 @@ void *aln_open2(const char *paf_path, const char *alt_path, double alt_baseline,
 void aln_close(void *h) {
     // teardown off the caller's path: the context holds the parsed
     // dataset + every built graph + formatted parts (~10^5-10^6 small
-    // heap blocks; ~0.4 s of free() at 50k contigs, measured inside
-    // the round-3 scale runs) — the caller only needs the outputs, so
+    // heap blocks, a visible share of a run at 50k contigs) — the
+    // caller only needs the outputs, so
     // a background thread releases the memory (joinable via
     // aln_drain_teardowns so bench reps don't inherit the churn).
     // The library stays loaded for the thread's lifetime (ctypes never
@@ -275,7 +275,7 @@ static void fill_rows(const std::vector<aln::OutRow> &rows, int64_t *buf) {
 // ---- bulk device-engine ABI ----------------------------------------
 // One call each for metadata, dense packing, device finish, stragglers,
 // and result IO — the Python layer holds NO per-contig loops on the
-// production path (the round-1 bottleneck: ~1 ms of Python per contig).
+// production path.
 
 int aln_meta_bulk(void *h, int64_t *meta) {
     // rows: (n, 8) i64 [built, n_records, n_vertices, n_edges, src,
@@ -778,7 +778,7 @@ int aln_solve_subset(void *h, const int64_t *idx, long long n_idx,
 int aln_prepare_results(void *h) {
     // pre-size the result store so concurrent finish/solve calls (the
     // device engine overlaps its non-device native solves with the
-    // tunnel sync on a host thread) never race ensure_results' lazy
+    // device sync on a host thread) never race ensure_results' lazy
     // resize — after this call ensure_results is a no-op size check
     ensure_results(*(ExportCtx *) h);
     return 0;
@@ -788,9 +788,8 @@ int aln_build_graph_one(void *h, long long i, char *err, int errlen) {
     // build contig i's DAG on demand — the graph-axis (mesh-sharded)
     // path's contigs exceed the exporter's max_records build gate, and
     // building EVERY giant eagerly would waste the common case.  The
-    // native build uses the same sparse cut tables as the solver (a
-    // 20k-record contig builds in ~140 ms / 68 MB — the host side of
-    // the >512 GB answer).  No-op when already built.
+    // native build uses the same sparse cut tables as the solver (the
+    // host side of the >512 GB answer).  No-op when already built.
     auto &ctx = *(ExportCtx *) h;
     try {
         if (i < 0 || (size_t) i >= ctx.ds.contigs.size())

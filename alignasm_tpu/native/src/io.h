@@ -142,8 +142,8 @@ void flush_three(const std::string &prefix,
                  const std::vector<std::string> &max, int threads);
 
 // ---- page population (heap.cc) ----------------------------------------
-// populate [p, p+len) as if written (one syscall, ~50-500x cheaper than
-// demand faulting under this hypervisor's page tracking); no-op where
+// populate [p, p+len) as if written (one syscall, far cheaper than
+// demand faulting under a hypervisor's page tracking); no-op where
 // MADV_POPULATE_WRITE is unsupported
 size_t populate_range(void *p, size_t len);
 // the page butler scans /proc/self/maps while any scope is alive and

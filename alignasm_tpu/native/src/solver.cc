@@ -135,8 +135,8 @@ constexpr i64 kParBuildMin = 64 << 10;
 
 // env-gated build sub-phase attribution (ALN_BUILD_PROF): prints the
 // sort / cut-vertex / edge split of one build — deterministic
-// wall-clock scopes, same rationale as ALN_SOLVE_PROF (this
-// hypervisor starves sampling profilers)
+// wall-clock scopes, same rationale as ALN_SOLVE_PROF (some
+// hypervisors starve sampling profilers)
 static void build_prof(const char *what, std::chrono::steady_clock::time_point t0) {
     static int on = -1;
     if (on < 0) on = getenv("ALN_BUILD_PROF") != nullptr;

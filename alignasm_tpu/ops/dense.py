@@ -15,13 +15,11 @@ tree edge the reference stores, but never these five quantities — so
 the production kernel drops them entirely: a contig is two dense
 (V, V) int32 matrices (score sum, anomaly; INF32 = no edge), and one
 relaxation sweep is a broadcast add + row-min — no gathers, no scatter,
-no segment ops, the shape the VPU is fastest at.  3/5 of the HBM/VMEM
-traffic of the full 5-matrix formulation (ops/pallas_relax.py) is gone.
+no segment ops.  Three of the five matrices of the full formulation
+(score, anomaly, mapq numerator/total, arrival rank) are gone.
 
-Dense min-plus trades redundant work (V^2 vs E lanes) for regularity;
-at bucket sizes (V <= ~256) the matrices live in VMEM across the sweep
-loop and the trade is strongly profitable on TPU (see PAPERS.md, the
-tensorized-APSP literature).
+Dense min-plus trades redundant work (V^2 vs E lanes) for regularity
+(see PAPERS.md, the tensorized-APSP literature).
 
 Walk counts are adjacency-matrix powers: cnt' = base + A @ cnt with
 saturation at the reference's k budget + 1 (values stay far below
@@ -73,10 +71,8 @@ def dense_solve_wire(wire, V, n_sweeps):
     transport: host->device moves one (B, 2, W) int32 tensor holding
     per-edge (flat cell index u*V+v, score|anom<<28) pairs plus
     (V*V, dest) and (V*V+1, src) entries; padding slots point at a
-    trash cell past the matrix.  A batched scatter densifies on device
-    (measured ~29 ms for 2048x128 on v5e — amortized; the wire is ~16x
-    smaller than the dense matrices, and on transports that charge per
-    byte moved this is a >3x end-to-end win).
+    trash cell past the matrix.  A batched scatter densifies on device;
+    the wire is ~16x smaller than the dense matrices it expands to.
 
     Returns (B, 2V + 4) int32 rows: [d_s (V), d_a (V), floor_a@src,
     cnt_tot@src, cnt_min@src, src] — the walk counts and the anomaly
@@ -183,9 +179,8 @@ def solve_slab_topo_nxt(arr, V):
          cnt_min@src, d_a@src, src]                       (V + 5,)
 
     and let the C++ finish chase the min-walk path from src on host
-    (nanoseconds).  Chasing ON DEVICE was a second V-step sequential
-    scan — dropping it cut the measured production launch (B=2048,
-    V=64) from 48 ms to 34 ms on v5e, ~64% of the compute.  nxt[u] is
+    (nanoseconds).  Chasing ON DEVICE would be a second V-step
+    sequential scan.  nxt[u] is
     the lowest-index achieving successor (strictly > u in the topo
     numbering, so a host chase always terminates in <= V steps); -1
     ("no achieving edge") is encoded as dest — the host only follows
@@ -274,19 +269,28 @@ def dense_solve_wire_topo_nxt16(wire, V):
     return jax.vmap(lambda arr: solve_slab_topo_nxt16(arr, V))(packed)
 
 
+def _count_dot(x, y):
+    """Product of two {0, 1, 2}-valued count operands, stated precision:
+    bfloat16 operands (exact for these values) with float32 accumulation
+    (every product <= 4, every sum <= 4 * Bk < 2^24, so exact too).  On
+    the GPU this is a tensor-core product that gives the same bits as a
+    HIGHEST-precision float32 product, without TF32 rounding."""
+    return jnp.matmul(x.astype(jnp.bfloat16), y.astype(jnp.bfloat16),
+                      preferred_element_type=jnp.float32)
+
+
 def _blocked_dp(arr, V, Bk=128):
     """Blocked big-V solve — the tropical triangular-solve formulation
-    (round-3 verdict Next #2).  The reverse-topo scan (_topo_scan) is V
-    sequential steps; at V = 8192 the step-sequencing overhead, not
-    memory, dominates (measured 0.205 s for a 5,200-record contig,
-    ~23 us/step — BENCH_RESULTS.md "Big contig").  This kernel cuts the
-    sequential depth from V to (V/Bk) * log2(Bk):
+    The reverse-topo scan (_topo_scan) is V sequential steps, each a
+    few small dependent operations, so at large V the step latency, not
+    memory, bounds it.  This kernel cuts the sequential depth from V to
+    (V/Bk) * log2(Bk):
 
     * vertices partition into V/Bk diagonal blocks, processed last to
       first (edges only point low -> high in the topo numbering);
     * per block, a dense (Bk, V) PANEL reduction folds the
       already-final suffix state into per-vertex external candidates —
-      bulk VPU work, one read of the block's slab rows;
+      bulk elementwise work, one read of the block's slab rows;
     * the (Bk, Bk) intra-block dependency is resolved by a LOG-DEPTH
       path-doubling closure: (I + A)^Bk via log2(Bk) min-plus matrix
       squarings (idempotent min makes repeated squaring exact), then
@@ -305,9 +309,11 @@ def _blocked_dp(arr, V, Bk=128):
               consumes counts only through (cnt_min == 1) and
               (cnt_tot >= 2), and min(x, 2) is a quotient-semiring
               homomorphism for the {0, 1, >=2} abstraction, so the
-              closure becomes exact small-int float32 matmuls — MXU
-              work (P' = P + Q @ P, Q' = Q @ Q with clamping; products
-              <= 4, sums <= 4*Bk < 2^24: float32-exact);
+              closure becomes exact small-int tensor-core matmuls
+              (P' = P + Q @ P, Q' = Q @ Q with clamping): operands in
+              {0, 1, 2} are exact in bfloat16, and with float32
+              accumulation (products <= 4, sums <= 4*Bk < 2^24) so is
+              every sum — see _count_dot;
       5. cm — the same counting solve over the (s, a)-achieving mask.
 
     nxt (lowest-index achieving successor) needs no recursion at all
@@ -356,16 +362,16 @@ def _blocked_dp(arr, V, Bk=128):
 
     def cnt_closure(adj):
         """P[i,k] = #paths i->k within the block (incl. empty), values
-        abstracted to {0, 1, 2}; float32 MXU matmuls, exact (< 2^24)."""
-        A0 = adj.astype(jnp.float32)
-        P0 = eye.astype(jnp.float32)  # P_m = sum_{l < 2^m} A^l; P_0 = I
+        abstracted to {0, 1, 2}; exact matmuls (see _count_dot)."""
+        A0 = adj.astype(jnp.bfloat16)
+        P0 = eye.astype(jnp.bfloat16)  # P_m = sum_{l < 2^m} A^l; P_0 = I
 
         def dbl(_, st):
             P, Q = st  # Q = A^(2^m): P_{m+1} = P_m + Q P_m (unique
             # split at the length-2^m prefix), Q doubles by squaring
-            P2 = jnp.minimum(P + Q @ P, 2.0)
-            Q2 = jnp.minimum(Q @ Q, 2.0)
-            return P2, Q2
+            P2 = jnp.minimum(P + _count_dot(Q, P), 2.0)
+            Q2 = jnp.minimum(_count_dot(Q, Q), 2.0)
+            return P2.astype(jnp.bfloat16), Q2.astype(jnp.bfloat16)
 
         P, _ = jax.lax.fori_loop(0, nlev, dbl, (P0, A0))
         return P
@@ -431,7 +437,7 @@ def _blocked_dp(arr, V, Bk=128):
             blk(b_c) + jnp.sum(jnp.where(e_tail, ct[None, :], jnp.int32(0)),
                                dtype=jnp.int32, axis=1), 2)
         Pct = cnt_closure(e_in)
-        xct = jnp.minimum(Pct @ pct.astype(jnp.float32), 2.0).astype(jnp.int32)
+        xct = jnp.minimum(_count_dot(Pct, pct), 2.0).astype(jnp.int32)
 
         # --- 5. cm: counting over the (s, a)-achieving mask ------------
         a_upd = jax.lax.dynamic_update_slice_in_dim(a, xa, lo, 0)
@@ -441,7 +447,7 @@ def _blocked_dp(arr, V, Bk=128):
             blk(b_c) + jnp.sum(jnp.where(ach2, cm[None, :], jnp.int32(0)),
                                dtype=jnp.int32, axis=1), 2)
         Pcm = cnt_closure(ach2_in)
-        xcm = jnp.minimum(Pcm @ pcm.astype(jnp.float32), 2.0).astype(jnp.int32)
+        xcm = jnp.minimum(_count_dot(Pcm, pcm), 2.0).astype(jnp.int32)
 
         # --- nxt: lowest-index achieving successor (no recursion) -----
         ach_full = edge & (s_upd[None, :] < INF32) \
@@ -579,10 +585,7 @@ def dense_solve_batch(ws, wa, dest, n_sweeps):
 
 
 def _solve_one(ws, wa, edge, dest, V, n_sweeps):
-    # dest-anchored init vectors via iota compare, not .at[].set: the
-    # scatter that a dynamic-index set lowers to has no Mosaic rule, and
-    # the select compiles identically on the XLA path (2D iota + squeeze
-    # per the TPU 1D-iota restriction)
+    # dest-anchored init vectors via iota compare, not .at[].set
     vidx = jax.lax.broadcasted_iota(jnp.int32, (V, 1), 0)[:, 0]
     on_dest = vidx == dest
     # --- (sum, anom) lexicographic min to dest -------------------
@@ -644,14 +647,8 @@ def _solve_one(ws, wa, edge, dest, V, n_sweeps):
 
 
 def solve_slab(arr, V, n_sweeps):
-    """The per-contig production math on one densified (V+1, V) slab —
-    shared verbatim by the XLA path (dense_solve_wire) and the Pallas
-    kernel below, so both compile identical arithmetic.
-
-    dest/src are read through static slices, not integer indices: an
-    integer index embeds an int64 literal in the gather, and this jax
-    build's Mosaic lowering loops forever on int64->int32 converts
-    (ops/pallas_topo.py found the same bug)."""
+    """The per-contig sweep math on one densified (V+1, V) slab
+    (dense_solve_wire)."""
     wsa = arr[:V]
     dest = jnp.reshape(arr[V : V + 1, 0:1], ())
     src = jnp.reshape(arr[V : V + 1, 1:2], ())
@@ -659,8 +656,6 @@ def solve_slab(arr, V, n_sweeps):
     ws = wsa & jnp.int32((1 << ANOM_SHIFT) - 1)
     wa = jax.lax.shift_right_logical(wsa, jnp.int32(ANOM_SHIFT))
     out5 = _solve_one(ws, wa, edge, dest, V, n_sweeps)
-    # masked-sum pick instead of vec[src]: a dynamic scalar gather has
-    # no Mosaic lowering under the Pallas twin's in-kernel vmap
     vidx = jax.lax.broadcasted_iota(jnp.int32, (V, 1), 0)[:, 0]
     at_src = vidx == src
     pick = lambda v: jnp.sum(jnp.where(at_src, v, 0), dtype=jnp.int32)
@@ -668,47 +663,6 @@ def solve_slab(arr, V, n_sweeps):
         out5[0], out5[1],
         jnp.stack([pick(out5[2]), pick(out5[3]), pick(out5[4]), src]),
     ])
-
-
-@functools.partial(jax.jit, static_argnames=("n_sweeps", "interpret"))
-def dense_solve_slabs_pallas(packed, n_sweeps, interpret=False):
-    """Pallas twin of the legacy sweep solve: a grid step holds G slabs
-    resident in VMEM across the whole sweep loop with the compare
-    cascade fused (the XLA path re-reads intermediates between the ~8
-    elementwise passes of each sweep; see BENCH_RESULTS.md roofline).
-    Takes the already-densified slabs (the wire scatter stays an XLA
-    op).  Any B (padded internally by replicating the last slab).
-    Block specs and init/pick forms are hardware-legal since round 2
-    (the 'Mosaic blocked' symptoms were two jax lowering bugs with
-    known workarounds — int64 index literals and i64 index-map
-    literals, see ops/pallas_topo.py), but a further lowering bug still
-    trips compilation of THIS kernel, so it remains interpret-validated
-    while ops/pallas_topo.py carries the compiled-on-chip claim."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    B, V1, V = packed.shape
-    G = 8
-    padB = ((B + G - 1) // G) * G
-    if padB != B:  # grid blocks are G slabs; replicate the last slab
-        packed = jnp.concatenate(
-            [packed, jnp.repeat(packed[-1:], padB - B, 0)])
-
-    def kernel(arr_ref, out_ref):
-        out_ref[:, :] = jax.vmap(
-            lambda a: solve_slab(a, V, n_sweeps))(arr_ref[:, :, :])
-
-    rows = pl.pallas_call(
-        kernel,
-        grid=(padB // G,),
-        in_specs=[pl.BlockSpec((G, V + 1, V), lambda b: (b, b * 0, b * 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((G, 2 * V + 4), lambda b: (b, b * 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((padB, 2 * V + 4), jnp.int32),
-        interpret=interpret,
-    )(packed)
-    return rows[:B]
 
 
 def unpack_dense(stacked_row):

@@ -165,11 +165,10 @@ def solve_contig_sharded_native(exporter, i, cfg, mesh: Mesh = None,
                                 axis: str = "graph"):
     """Production graph-axis solve: contig ``i``'s DAG is built and its
     edge tables exported by the C++ host plane (threaded sparse-table
-    build — ~140 ms for a 20k-record contig), the relaxation edge-shards
+    build), the relaxation edge-shards
     over the device mesh, and the floor/counts/gate/finish run back in
     C++ (aln_finish_sharded), which stores the result in the exporter.
-    No per-contig Python beyond array padding — the round-2 verdict's
-    item 5.  Returns True when the device-assisted fast finish ran."""
+    No per-contig Python beyond array padding.  Returns True when the device-assisted fast finish ran."""
     import numpy as np
 
     if mesh is None:

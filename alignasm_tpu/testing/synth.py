@@ -692,6 +692,45 @@ def generate_alt_paf(main_paf: str, seed: int = 0, n_groups: int = 12) -> str:
     return "\n".join(lines) + "\n" if lines else ""
 
 
+def generate_chain_paf(n_segments: int, seed: int = 5,
+                       name: str = "bigctg") -> str:
+    """One chromosome-scale contig: a forward chain of ``n_segments``
+    same-chromosome records, ~30 % of them followed by an overlapping
+    duplicate placed further along the reference.  Edge scores stay
+    small (no translocations), so the contig stays inside the device's
+    path-sum envelope while its DAG grows to ~1.3 vertices per segment."""
+    rng = np.random.default_rng(seed)
+    lines = []
+    qry_pos, ref_pos = 10, 1000
+    for _ in range(n_segments):
+        rec, qlen, rlen = _make_record(
+            rng, name, 10**9, qry_pos, int(rng.integers(150, 400)),
+            "chr1", 3 * 10**8, ref_pos, True, 60,
+        )
+        lines.append(rec.to_line())
+        if rng.random() < 0.3:
+            ov = int(rng.integers(5, max(6, qlen // 2)))
+            dup, dq, dr = _make_record(
+                rng, name, 10**9, qry_pos + qlen - ov,
+                int(rng.integers(ov + 20, ov + 300)),
+                "chr1", 3 * 10**8, ref_pos + int(rng.integers(2000, 8000)),
+                True, 60,
+            )
+            lines.append(dup.to_line())
+            qry_pos += qlen + dq - ov + int(rng.integers(1, 50))
+            ref_pos += rlen + dr
+        else:
+            qry_pos += qlen + int(rng.integers(1, 50))
+            ref_pos += rlen + int(rng.integers(0, 100))
+    total = qry_pos + 1000
+    fixed = []
+    for line in lines:
+        f = line.split("\t")
+        f[1] = str(total)
+        fixed.append("\t".join(f))
+    return "\n".join(fixed) + "\n"
+
+
 def write_paf(path: str, **kwargs) -> None:
     with open(path, "w") as fh:
         fh.write(generate_paf(**kwargs))

@@ -5,8 +5,6 @@ Datasets x engines (native/exact) x upgrade modes x flags (alt merge,
 matching oracle build.  Run manually:
 
     python tests/fuzz_campaign.py [n_cases]
-
-Round-2 record: 300/300 cases clean (BENCH_RESULTS.md).
 """
 import pathlib, random, subprocess, sys, tempfile, time
 

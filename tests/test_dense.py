@@ -289,44 +289,6 @@ def test_exporter_wire_is_topological(tmp_path):
         exp.close()
 
 
-def test_pallas_slab_kernel_matches_xla_twin():
-    """The Pallas production kernel (interpret mode — Mosaic is blocked
-    in this container) must equal the XLA path on densified slabs."""
-    from alignasm_tpu.ops.dense import (
-        ANOM_SHIFT, INF32, dense_solve_slabs_pallas, dense_solve_wire,
-    )
-
-    rng = np.random.default_rng(12)
-    B, V, S = 4, 16, 8
-    mask = np.triu(rng.random((B, V, V)) < 0.25, k=1)
-    packed = np.full((B, V + 1, V), INF32, np.int32)
-    scores = rng.integers(1, 1000, (B, V, V)).astype(np.int32)
-    anoms = rng.integers(0, 3, (B, V, V)).astype(np.int32)
-    packed[:, :V][mask] = scores[mask] | (anoms[mask] << ANOM_SHIFT)
-    dests = rng.integers(V // 2, V, B).astype(np.int32)
-    srcs = rng.integers(0, V // 2, B).astype(np.int32)
-    packed[:, V, 0] = dests
-    packed[:, V, 1] = srcs
-
-    # the XLA reference via the wire (same slabs)
-    E = int(mask.sum(axis=(1, 2)).max())
-    wire = np.empty((B, 2, E + 3), np.int32)
-    wire[:, 0] = V * (V + 1)
-    wire[:, 1] = 0
-    for b in range(B):
-        us, vs = np.nonzero(mask[b])
-        k = len(us)
-        wire[b, 0, :k] = (us * V + vs).astype(np.int32)
-        wire[b, 1, :k] = packed[b, us, vs]
-        wire[b, 0, k] = V * V
-        wire[b, 1, k] = dests[b]
-        wire[b, 0, k + 1] = V * V + 1
-        wire[b, 1, k + 1] = srcs[b]
-    a = np.asarray(dense_solve_wire(wire, V=V, n_sweeps=S))
-    c = np.asarray(dense_solve_slabs_pallas(packed, n_sweeps=S, interpret=True))
-    np.testing.assert_array_equal(a, c)
-
-
 def test_dense_rejects_parallel_edges():
     """pack_dense_bucket must refuse duplicate (u, v) cells."""
     import dataclasses
@@ -373,8 +335,8 @@ def test_dense_bucket_partition():
 
 def test_dense_bucket_merge_collapses_small_groups():
     """With the default merge bonus, a bench-shaped V distribution must
-    collapse into ONE launch (every launch pays a fixed round trip on
-    tunneled backends); a huge group of tiny contigs must NOT be lifted
+    collapse into ONE launch (every launch pays a fixed dispatch and
+    transfer cost); a huge group of tiny contigs must NOT be lifted
     to a lone giant contig's V."""
     from alignasm_tpu.runtime.scheduler import _dense_buckets
 
@@ -581,9 +543,10 @@ def _rand_wire(B, V, density, seed, nv=None, score_max=1000):
     (256, 64, 0.0005, 4, None),  # mostly unreachable
     (128, 64, 0.002, 11, 70),    # tiny + padding
     (256, 128, 0.9, 10, None),   # near-complete DAG (deep tie sets)
-    (512, 64, 0.08, 9, None),    # the production single-slab Bk
-    (512, 32, 0.08, 9, None),    # the production batched Bk (round 5)
-    (256, 32, 0.3, 2, None),     # batched Bk, dense
+    (512, 64, 0.08, 9, None),
+    (512, 32, 0.08, 9, None),
+    (256, 32, 0.3, 2, None),     # small Bk, dense
+    (512, 256, 0.02, 6, 400),    # the production single-slab Bk
 ])
 def test_blocked_matches_scan(V, Bk, density, seed, nv):
     """The blocked tropical triangular solve (log-depth closures +
@@ -628,3 +591,75 @@ def test_blocked_dp_vectors_match_scan():
     assert (np.minimum(np.asarray(cm), 2) == np.asarray(cm2)).all()
     assert (np.asarray(nxt) == np.asarray(nxt2)).all()
     assert int(d2) == int(dest) and int(s2_) == int(src)
+
+
+def test_blocked_count_closure_states_its_precision():
+    """Every matmul of the blocked kernel's count closures takes bfloat16
+    operands with float32 accumulation (exact for {0, 1, 2} operands),
+    so no backend default (TF32 on the GPU) can round it; and with that
+    precision the rows stay bit-equal to the scan on a tie-rich DAG
+    whose counts saturate inside the closures."""
+    import jax
+    import jax.numpy as jnp
+
+    from alignasm_tpu.ops.dense import (
+        _blocked_dp, dense_solve_wire_topo_nxt16_blocked_ragged,
+        dense_solve_wire_topo_nxt16_ragged,
+    )
+
+    V, Bk = 256, 64
+    arr = jnp.zeros((V + 1, V), jnp.int32)
+    jaxpr = jax.make_jaxpr(lambda x: _blocked_dp(x, V, Bk))(arr)
+
+    def dots(jx):  # every dot_general, loop bodies included
+        for eqn in jx.eqns:
+            if eqn.primitive.name == "dot_general":
+                yield eqn
+            for v in eqn.params.values():
+                for sub in v if isinstance(v, (tuple, list)) else (v,):
+                    sub = getattr(sub, "jaxpr", sub)
+                    if hasattr(sub, "eqns"):
+                        yield from dots(sub)
+
+    found = list(dots(jaxpr.jaxpr))
+    assert found, "no count-closure matmul traced"
+    for eqn in found:
+        assert [v.aval.dtype for v in eqn.invars] == [jnp.bfloat16] * 2
+        assert eqn.params["preferred_element_type"] == jnp.float32
+        assert eqn.outvars[0].aval.dtype == jnp.float32
+
+    w = _rand_wire(2, V, 0.6, 17)
+    ref = np.asarray(dense_solve_wire_topo_nxt16_ragged(w, B=2, V=V))
+    got = np.asarray(
+        dense_solve_wire_topo_nxt16_blocked_ragged(w, B=2, V=V, Bk=Bk))
+    assert (ref == got).all()
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("V,B,Bk", [(1024, 8, 128), (8192, 1, 256)])
+def test_blocked_matches_scan_on_card(gpu, V, B, Bk):
+    """On the card, at the production big-V shapes, the blocked kernel's
+    rows are bit-equal to the reverse-topo scan's."""
+    from alignasm_tpu.ops.dense import (
+        dense_solve_wire_topo_nxt16_blocked_ragged,
+        dense_solve_wire_topo_nxt16_ragged,
+    )
+
+    w = _rand_wire(B, V, 4.0 / V, 5)
+    ref = np.asarray(dense_solve_wire_topo_nxt16_ragged(w, B=B, V=V))
+    got = np.asarray(
+        dense_solve_wire_topo_nxt16_blocked_ragged(w, B=B, V=V, Bk=Bk))
+    assert (ref == got).all()
+
+
+@pytest.mark.parametrize("V,B,want", [
+    (512, 1, 256), (8192, 1, 256), (512, 2, 128), (1024, 8, 128),
+    (8192, 8, 128), (256, 1, 256), (128, 1, 128),
+])
+def test_blocked_bk_rule(V, B, want):
+    """The big-V bucket's block size: 256 for one slab, 128 for a batch,
+    never more than V (the kernel needs V % Bk == 0)."""
+    from alignasm_tpu.runtime.scheduler import _blocked_bk
+
+    assert _blocked_bk(V, B) == want
+    assert V % _blocked_bk(V, B) == 0

@@ -1,51 +1,51 @@
-"""Input edge cases through the native CLI pipeline vs the oracle."""
+"""Input edge cases through the native pipeline vs the reference (the
+C++ oracle where its sources exist, else the exact engine)."""
 
 import pathlib
 
 import pytest
 
 from alignasm_tpu import native
-from tests.conftest import run_oracle
 
 
-def _both(oracle_bin, tmp_path, text, extra=()):
+def _both(reference_outputs, tmp_path, text, extra=()):
     paf = tmp_path / "t.paf"
     paf.write_text(text)
-    oracle_outs = run_oracle(oracle_bin, paf, tmp_path, extra=extra)
+    gold = reference_outputs(paf, tmp_path, extra=extra)
     nat = tmp_path / "n.paf"
     nat.write_bytes(paf.read_bytes())
     native.run(str(nat))
-    for o, suffix in zip(oracle_outs, ("", ".alt", ".all")):
+    for g, suffix in zip(gold, ("", ".alt", ".all")):
         got = pathlib.Path(str(nat)[:-4] + f".aln{suffix}.paf")
-        assert o.read_bytes() == got.read_bytes(), f"aln{suffix}"
+        assert g == got.read_bytes(), f"aln{suffix}"
 
 
-def test_single_base_records(oracle_bin, tmp_path):
+def test_single_base_records(reference_outputs, tmp_path):
     # qry_end - qry_str == 1 (single base, half-open)
     rows = [
         "c1\t100\t5\t6\t+\tchrA\t50\t9\t10\t1\t1\t60\tcs:Z::1",
         "c1\t100\t20\t21\t+\tchrA\t50\t30\t31\t1\t1\t0\tcs:Z::1",
     ]
-    _both(oracle_bin, tmp_path, "\n".join(rows) + "\n")
+    _both(reference_outputs, tmp_path, "\n".join(rows) + "\n")
 
 
-def test_crlf_line_endings(oracle_bin, tmp_path):
+def test_crlf_line_endings(reference_outputs, tmp_path):
     rows = [
         "c1\t200\t0\t50\t+\tchrA\t500\t0\t50\t50\t50\t60\tcs:Z::50",
         "c1\t200\t60\t120\t+\tchrA\t500\t60\t120\t60\t60\t60\tcs:Z::60",
     ]
-    _both(oracle_bin, tmp_path, "\r\n".join(rows) + "\r\n")
+    _both(reference_outputs, tmp_path, "\r\n".join(rows) + "\r\n")
 
 
-def test_mapq_255(oracle_bin, tmp_path):
+def test_mapq_255(reference_outputs, tmp_path):
     rows = [
         "c1\t300\t0\t50\t+\tchrA\t500\t0\t50\t50\t50\t255\tcs:Z::50",
         "c1\t300\t60\t120\t-\tchrA\t500\t200\t260\t60\t60\t255\tcs:Z::60",
     ]
-    _both(oracle_bin, tmp_path, "\n".join(rows) + "\n")
+    _both(reference_outputs, tmp_path, "\n".join(rows) + "\n")
 
 
-def test_reappearing_contig_name(oracle_bin, tmp_path):
+def test_reappearing_contig_name(reference_outputs, tmp_path):
     # query name appears, another contig intervenes, then it reappears:
     # the reference starts a NEW contig on every name change
     rows = [
@@ -53,27 +53,27 @@ def test_reappearing_contig_name(oracle_bin, tmp_path):
         "cB\t200\t0\t50\t+\tchrA\t500\t100\t150\t50\t50\t60\tcs:Z::50",
         "cA\t200\t60\t110\t+\tchrA\t500\t200\t250\t50\t50\t60\tcs:Z::50",
     ]
-    _both(oracle_bin, tmp_path, "\n".join(rows) + "\n")
+    _both(reference_outputs, tmp_path, "\n".join(rows) + "\n")
 
 
-def test_rev_strand_only_contig(oracle_bin, tmp_path):
+def test_rev_strand_only_contig(reference_outputs, tmp_path):
     rows = [
         "c1\t400\t10\t60\t-\tchrA\t900\t700\t750\t50\t50\t60\tcs:Z::50",
         "c1\t400\t80\t140\t-\tchrA\t900\t600\t660\t60\t60\t60\tcs:Z::60",
         "c1\t400\t150\t200\t-\tchrA\t900\t500\t550\t50\t50\t20\tcs:Z::50",
     ]
-    _both(oracle_bin, tmp_path, "\n".join(rows) + "\n")
+    _both(reference_outputs, tmp_path, "\n".join(rows) + "\n")
 
 
-def test_identical_duplicate_records(oracle_bin, tmp_path):
+def test_identical_duplicate_records(reference_outputs, tmp_path):
     # exact duplicates: full-distance ties everywhere — deterministic
     # oracle (bump allocator) vs engine must still agree
     row = "c1\t300\t10\t110\t+\tchrA\t500\t10\t110\t100\t100\t60\tcs:Z::100"
     rows = [row, row, "c1\t300\t150\t250\t+\tchrA\t500\t150\t250\t100\t100\t60\tcs:Z::100"]
-    _both(oracle_bin, tmp_path, "\n".join(rows) + "\n")
+    _both(reference_outputs, tmp_path, "\n".join(rows) + "\n")
 
 
-def test_alt_merge_flush_fallback(oracle_bin, tmp_path):
+def test_alt_merge_flush_fallback(reference_outputs, tmp_path):
     # an alt group where no record passes the baseline: the single
     # best-ratio record is appended instead (alignasm.cpp:244-252)
     main_rows = [
@@ -89,16 +89,16 @@ def test_alt_merge_flush_fallback(oracle_bin, tmp_path):
     paf.write_text("\n".join(main_rows) + "\n")
     alt = tmp_path / "a.paf"
     alt.write_text("\n".join(alt_rows) + "\n")
-    oracle_outs = run_oracle(oracle_bin, paf, tmp_path, extra=["-a", str(alt)])
+    gold = reference_outputs(paf, tmp_path, extra=["-a", str(alt)])
     nat = tmp_path / "n.paf"
     nat.write_bytes(paf.read_bytes())
     native.run(str(nat), alt_path=str(alt))
-    for o, suffix in zip(oracle_outs, ("", ".alt", ".all")):
+    for g, suffix in zip(gold, ("", ".alt", ".all")):
         got = pathlib.Path(str(nat)[:-4] + f".aln{suffix}.paf")
-        assert o.read_bytes() == got.read_bytes(), f"aln{suffix}"
+        assert g == got.read_bytes(), f"aln{suffix}"
 
 
-def test_mapq_overflow_wraps_uint8(oracle_bin, tmp_path):
+def test_mapq_overflow_wraps_uint8(reference_outputs, tmp_path):
     # mapq 256/300 pass through uint8_t in the reference (paf_data.hpp:65)
     # — 256 scores qul_nonzero=0 and prints as "0"; all engines must wrap
     rows = [
@@ -106,7 +106,7 @@ def test_mapq_overflow_wraps_uint8(oracle_bin, tmp_path):
         "c1\t300\t60\t120\t+\tchrA\t500\t60\t120\t60\t60\t300\tcs:Z::60",
     ]
     text = "\n".join(rows) + "\n"
-    _both(oracle_bin, tmp_path, text)
+    _both(reference_outputs, tmp_path, text)
     # Python engines parse through the same wrap
     from alignasm_tpu.io.paf import read_paf
 
@@ -141,7 +141,7 @@ def test_alt_group_all_zero_ratio_raises(tmp_path):
         native.run(str(paf), alt_path=str(alt))
 
 
-def test_long_cs_string(oracle_bin, tmp_path):
+def test_long_cs_string(reference_outputs, tmp_path):
     import random
 
     rng = random.Random(0)
@@ -168,7 +168,7 @@ def test_long_cs_string(oracle_bin, tmp_path):
         f"c1\t{q+200}\t0\t{q}\t+\tchrA\t{r+100}\t0\t{r}\t{mat}\t{aln}\t60\t{cs}",
         f"c1\t{q+200}\t{q+10}\t{q+110}\t+\tchrA\t{r+100}\t{r-100}\t{r}\t100\t100\t60\tcs:Z::100",
     ]
-    _both(oracle_bin, tmp_path, "\n".join(rows) + "\n")
+    _both(reference_outputs, tmp_path, "\n".join(rows) + "\n")
 
 
 def test_cli_progress_and_profile_flags(tmp_path, oracle_bin):

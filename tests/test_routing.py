@@ -1,23 +1,48 @@
-"""Device-routing cost model (runtime/costmodel.py) — the round-3
-Amdahl A/B turned into policy: --engine tpu must never lose to the
-native plane, because work is dispatched to the device only when the
+"""Device-routing cost model (runtime/costmodel.py) — the Amdahl A/B
+turned into policy: --engine tpu must never lose to the native plane,
+because work is dispatched to the device only when the device's own
 measured model predicts a win."""
 
 import dataclasses
+import datetime
 import json
 import pathlib
+
+import pytest
 
 from alignasm_tpu.config import DEFAULT_CONFIG
 from alignasm_tpu.runtime.costmodel import DeviceCostModel, load_model
 from alignasm_tpu.testing.synth import generate_paf
 
+# a complete, fresh calibration measured on the test device ("cpu")
+FIELDS = {
+    "dispatch_rtt_s": 0.026, "h2d_bytes_per_s": 50e6,
+    "d2h_bytes_per_s": 14e6, "solve_s_per_record": 6.1e-7,
+    "solve_s_per_contig_min": 2e-6, "finish_vs_solve": 1.07,
+    "device_s_per_contig": 1.7e-6, "device_s_per_step": 2e-6,
+}
+
+
+def _cal(device_kind="cpu", days=30, **over):
+    today = datetime.date.today()
+    return {**FIELDS, **over,
+            "_meta": {"date": today.isoformat(),
+                      "stale_after": (today + datetime.timedelta(days=days))
+                      .isoformat(),
+                      "device_kind": device_kind, "method": "unit"}}
+
 
 def test_default_model_routes_nothing():
-    """The measured constants (finish_vs_solve >= 1: the device-assisted
-    finish costs MORE than the full native solve it replaces) mean no
-    bucket can ever win — corpus-independent."""
-    m = DeviceCostModel()
+    """With no calibration for the device there is no model and auto
+    routing sends nothing to it; a model whose finish_vs_solve >= 1 (the
+    device-assisted finish costs MORE than the full native solve it
+    replaces) means no bucket can ever win — corpus-independent."""
+    from alignasm_tpu.runtime.scheduler import _routing
+
+    assert _routing(DEFAULT_CONFIG, None) == ("auto", False)
+    m = DeviceCostModel(**FIELDS)
     assert not m.any_possible_win()
+    assert _routing(DEFAULT_CONFIG, m) == ("auto", False)
     # even an absurdly favorable bucket loses with finish_vs_solve >= 1
     assert not m.bucket_profitable(
         n_contigs=10**6, V=64, wire_bytes=1, row_bytes=1,
@@ -29,10 +54,10 @@ def test_calibrated_model_can_route(tmp_path, monkeypatch):
     replaces (a real DP-dominated regime), the model routes buckets
     whose saved work exceeds the transport cost."""
     cal = tmp_path / "cal.json"
-    cal.write_text(json.dumps({
-        "finish_vs_solve": 0.2, "dispatch_rtt_s": 2e-5,
-        "h2d_bytes_per_s": 8e9, "d2h_bytes_per_s": 8e9,
-    }))
+    cal.write_text(json.dumps(_cal(
+        finish_vs_solve=0.2, dispatch_rtt_s=2e-5,
+        h2d_bytes_per_s=8e9, d2h_bytes_per_s=8e9,
+    )))
     monkeypatch.setenv("ALIGNASM_TPU_COSTMODEL", str(cal))
     m = load_model()
     assert m.any_possible_win()
@@ -46,33 +71,62 @@ def test_calibrated_model_can_route(tmp_path, monkeypatch):
 
 def test_model_rejects_unknown_fields(tmp_path, monkeypatch):
     cal = tmp_path / "bad.json"
-    cal.write_text(json.dumps({"finish_vs_solve": 0.5, "typo_field": 1}))
+    cal.write_text(json.dumps(_cal(finish_vs_solve=0.5, typo_field=1)))
     monkeypatch.setenv("ALIGNASM_TPU_COSTMODEL", str(cal))
-    import pytest
-
     with pytest.raises(ValueError, match="typo_field"):
         load_model()
+    # a partial artifact has no defaults to fall back on
+    partial = {k: v for k, v in _cal().items() if k != "device_s_per_step"}
+    cal.write_text(json.dumps(partial))
+    with pytest.raises(ValueError, match="device_s_per_step"):
+        load_model()
+
+
+def test_calibration_from_another_device_rejected(tmp_path, monkeypatch):
+    """A calibration is a measurement of one device: an artifact whose
+    _meta.device_kind differs from the running device (or names none)
+    never steers routing — the committed artifact is ignored with the
+    reason recorded, an operator override raises."""
+    from alignasm_tpu.runtime import costmodel
+
+    monkeypatch.delenv("ALIGNASM_TPU_COSTMODEL", raising=False)
+    art = tmp_path / "calibration.json"
+    monkeypatch.setattr(costmodel, "CALIBRATION_PATH", str(art))
+    art.write_text(json.dumps(_cal(device_kind="NVIDIA H100 80GB HBM3",
+                                   finish_vs_solve=0.2)))
+    m, prov = costmodel.load_model_info()          # running on "cpu"
+    assert m is None
+    assert prov["source"] == "none" and prov["device_kind"] == "cpu"
+    assert "measured on 'NVIDIA H100 80GB HBM3'" in prov["note"]
+    m, prov = costmodel.load_model_info("NVIDIA H100 80GB HBM3")
+    assert m.finish_vs_solve == 0.2 and prov["source"] == "artifact"
+
+    raw = _cal(finish_vs_solve=0.2)
+    del raw["_meta"]["device_kind"]
+    art.write_text(json.dumps(raw))
+    m, prov = costmodel.load_model_info()
+    assert m is None and "no _meta.device_kind" in prov["note"]
+
+    env_cal = tmp_path / "op.json"
+    env_cal.write_text(json.dumps(_cal(device_kind="other")))
+    monkeypatch.setenv("ALIGNASM_TPU_COSTMODEL", str(env_cal))
+    with pytest.raises(ValueError, match="measured on 'other'"):
+        costmodel.load_model_info()
 
 
 def test_calibration_artifact_used_when_fresh(tmp_path, monkeypatch):
     """The committed artifact (regenerated by `devbench --calibrate`)
-    is consumed when fresh per its own _meta.stale_after, with dated
-    provenance."""
-    import datetime
-
+    is consumed on its own device when fresh per its own
+    _meta.stale_after, with dated provenance."""
     from alignasm_tpu.runtime import costmodel
 
     monkeypatch.delenv("ALIGNASM_TPU_COSTMODEL", raising=False)
-    today = datetime.date.today()
     art = tmp_path / "calibration.json"
-    art.write_text(json.dumps({
-        "finish_vs_solve": 1.11, "dispatch_rtt_s": 0.031,
-        "_meta": {"date": today.isoformat(),
-                  "stale_after": (today + datetime.timedelta(days=30))
-                  .isoformat(),
-                  "device_kind": "testkind", "method": "unit"}}))
+    art.write_text(json.dumps(_cal(device_kind="testkind",
+                                   finish_vs_solve=1.11,
+                                   dispatch_rtt_s=0.031)))
     monkeypatch.setattr(costmodel, "CALIBRATION_PATH", str(art))
-    m, prov = costmodel.load_model_info()
+    m, prov = costmodel.load_model_info("testkind")
     assert m.finish_vs_solve == 1.11 and m.dispatch_rtt_s == 0.031
     assert prov["source"] == "artifact"
     assert prov["age_days"] == 0
@@ -81,72 +135,64 @@ def test_calibration_artifact_used_when_fresh(tmp_path, monkeypatch):
 
 def test_stale_or_absent_calibration_falls_back(tmp_path, monkeypatch):
     """A stale, absent, torn, or drifted artifact must NEVER silently
-    steer the gate: the documented dataclass defaults apply, with the
-    reason recorded in the provenance."""
+    steer the gate: there is no model (auto routes to the native plane),
+    with the reason recorded in the provenance."""
     from alignasm_tpu.runtime import costmodel
 
     monkeypatch.delenv("ALIGNASM_TPU_COSTMODEL", raising=False)
     art = tmp_path / "calibration.json"
-    defaults = costmodel.DeviceCostModel()
 
     monkeypatch.setattr(costmodel, "CALIBRATION_PATH", str(art))
     m, prov = costmodel.load_model_info()          # absent
-    assert m == defaults and prov["source"] == "defaults"
+    assert m is None and prov["source"] == "none"
 
-    art.write_text(json.dumps({
-        "finish_vs_solve": 0.2,
-        "_meta": {"date": "2026-01-01", "stale_after": "2026-02-01"}}))
+    raw = _cal(finish_vs_solve=0.2)
+    raw["_meta"].update(date="2026-01-01", stale_after="2026-02-01")
+    art.write_text(json.dumps(raw))
     m, prov = costmodel.load_model_info()          # stale
-    assert m == defaults
+    assert m is None
     assert "stale since 2026-02-01" in prov["note"]
 
-    art.write_text(json.dumps({"finish_vs_solve": 0.2}))
+    raw = _cal(finish_vs_solve=0.2)
+    del raw["_meta"]["stale_after"]
+    art.write_text(json.dumps(raw))
     m, prov = costmodel.load_model_info()          # no shelf life declared
-    assert m == defaults and "stale_after" in prov["note"]
+    assert m is None and "stale_after" in prov["note"]
 
     art.write_text("{torn")
     m, prov = costmodel.load_model_info()          # unparsable
-    assert m == defaults and prov["source"] == "defaults"
+    assert m is None and prov["source"] == "none"
 
-    # corruption classes from the round-5 review: a truthy non-dict
-    # _meta (crashed _is_stale with AttributeError), non-string dates,
-    # and a non-object root must all fall back, never raise
-    art.write_text(json.dumps({"finish_vs_solve": 0.2,
-                               "_meta": "2026-08-20"}))
+    # corruption classes: a truthy non-dict _meta, non-string dates, and
+    # a non-object root must all fall back, never raise
+    art.write_text(json.dumps({**FIELDS, "_meta": "2026-08-20"}))
     m, prov = costmodel.load_model_info()
-    assert m == defaults and prov["source"] == "defaults"
+    assert m is None and prov["source"] == "none"
 
-    art.write_text(json.dumps({"finish_vs_solve": 0.2,
-                               "_meta": {"stale_after": 5}}))
+    raw = _cal(finish_vs_solve=0.2)
+    raw["_meta"]["stale_after"] = 5
+    art.write_text(json.dumps(raw))
     m, prov = costmodel.load_model_info()
-    assert m == defaults and "unparsable" in prov["note"]
+    assert m is None and "unparsable" in prov["note"]
 
     art.write_text(json.dumps([1, 2, 3]))
     m, prov = costmodel.load_model_info()
-    assert m == defaults and prov["source"] == "defaults"
+    assert m is None and prov["source"] == "none"
 
-    import datetime
-
-    far = (datetime.date.today() + datetime.timedelta(days=9)).isoformat()
-    art.write_text(json.dumps({
-        "finish_vs_solve": 0.2, "renamed_field": 1,
-        "_meta": {"stale_after": far}}))
+    art.write_text(json.dumps(_cal(days=9, finish_vs_solve=0.2,
+                                   renamed_field=1)))
     m, prov = costmodel.load_model_info()          # field drift
-    assert m == defaults and "invalid" in prov["note"]
+    assert m is None and "invalid" in prov["note"]
 
 
 def test_env_override_beats_artifact(tmp_path, monkeypatch):
-    import datetime
-
     from alignasm_tpu.runtime import costmodel
 
-    far = (datetime.date.today() + datetime.timedelta(days=9)).isoformat()
     art = tmp_path / "calibration.json"
-    art.write_text(json.dumps({"finish_vs_solve": 1.5,
-                               "_meta": {"stale_after": far}}))
+    art.write_text(json.dumps(_cal(days=9, finish_vs_solve=1.5)))
     monkeypatch.setattr(costmodel, "CALIBRATION_PATH", str(art))
     env_cal = tmp_path / "op.json"
-    env_cal.write_text(json.dumps({"finish_vs_solve": 0.4}))
+    env_cal.write_text(json.dumps(_cal(finish_vs_solve=0.4)))
     monkeypatch.setenv("ALIGNASM_TPU_COSTMODEL", str(env_cal))
     m, prov = costmodel.load_model_info()
     assert m.finish_vs_solve == 0.4
@@ -162,8 +208,6 @@ def test_committed_calibration_artifact_is_valid():
     from alignasm_tpu.runtime import costmodel
 
     if not os.path.exists(costmodel.CALIBRATION_PATH):
-        import pytest
-
         pytest.skip("no committed calibration artifact yet")
     raw = json.loads(open(costmodel.CALIBRATION_PATH).read())
     model, _ = costmodel._parse_model(raw, "artifact",
@@ -172,12 +216,17 @@ def test_committed_calibration_artifact_is_valid():
     assert raw.get("_meta", {}).get("date"), "artifact must be dated"
     assert raw.get("_meta", {}).get("stale_after"), \
         "artifact must declare its shelf life"
+    from alignasm_tpu.runtime.devbench import DEVICE_PEAKS
+
+    assert raw["_meta"].get("device_kind") in DEVICE_PEAKS, \
+        "artifact must name a known card"
 
 
 def test_auto_routing_byte_identical_and_recorded(tmp_path):
     """device_routing='auto' (the production default) must produce the
     same bytes as the forced device pipeline, record the decision in
-    stats, and route through the fused native plane on this profile."""
+    stats, and route through the fused native plane on a device with no
+    calibration."""
     from alignasm_tpu.runtime.scheduler import solve_dataset_tpu
 
     p = tmp_path / "r.paf"
@@ -191,10 +240,11 @@ def test_auto_routing_byte_identical_and_recorded(tmp_path):
     assert s["routing"] == "auto"
     assert s["routed"] == "fused-native"
     assert s["device_routed_frac"] == 0.0
-    assert s["cost_model"]["any_possible_win"] is False
-    # every routed run states which measurement its gate ran on
-    assert s["cost_model"]["calibration"]["source"] in (
-        "artifact", "defaults", "env")
+    # every routed run states which measurement its gate ran on (none
+    # here: the test device "cpu" has no calibration) and its device
+    assert s["cost_model"]["calibration"]["source"] == "none"
+    assert s["cost_model"]["calibration"]["device_kind"] == "cpu"
+    assert (s["platform"], s["device_kind"]) == ("cpu", "cpu")
     auto_bytes = [pathlib.Path(prefix + f".aln{x}.paf").read_bytes()
                   for x in ("", ".alt", ".all")]
 
@@ -249,7 +299,7 @@ def test_auto_with_calibration_gates_per_bucket(tmp_path, monkeypatch):
         return dict(solve_dataset_tpu.last_stats)
 
     # wins possible in principle, but a 1000 s dispatch gates everything
-    s = run_with({"finish_vs_solve": 0.2, "dispatch_rtt_s": 1000.0})
+    s = run_with(_cal(finish_vs_solve=0.2, dispatch_rtt_s=1000.0))
     assert s["routing"] == "auto"
     assert s.get("buckets_gated", 0) >= 1, s
     assert s["device"] == 0
@@ -257,10 +307,10 @@ def test_auto_with_calibration_gates_per_bucket(tmp_path, monkeypatch):
                    for x in ("", ".alt", ".all")]
 
     # near-free transport: the same buckets must launch
-    s = run_with({"finish_vs_solve": 0.2, "dispatch_rtt_s": 1e-7,
-                  "h2d_bytes_per_s": 1e12, "d2h_bytes_per_s": 1e12,
-                  "device_s_per_contig": 1e-9, "device_s_per_step": 1e-9,
-                  "solve_s_per_record": 1e-3})
+    s = run_with(_cal(finish_vs_solve=0.2, dispatch_rtt_s=1e-7,
+                      h2d_bytes_per_s=1e12, d2h_bytes_per_s=1e12,
+                      device_s_per_contig=1e-9, device_s_per_step=1e-9,
+                      solve_s_per_record=1e-3))
     assert s.get("buckets_gated", 0) == 0, s
     assert s["device"] + s["fallback"] >= 1, s
     for b, x in zip(gated_bytes, ("", ".alt", ".all")):

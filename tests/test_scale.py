@@ -5,55 +5,18 @@ karyotype inputs (README.md:25); sparse tables remove that by design."""
 import resource
 import time
 
-import numpy as np
-import pytest
-
-from alignasm_tpu.testing.synth import _make_record
+from alignasm_tpu.testing.synth import generate_chain_paf
 
 
-def _chain_contig(n_segments: int, seed: int = 5) -> str:
-    rng = np.random.default_rng(seed)
-    lines = []
-    qry_pos, ref_pos = 10, 1000
-    for _ in range(n_segments):
-        rec, qlen, rlen = _make_record(
-            rng, "bigctg", 10**9, qry_pos, int(rng.integers(150, 400)),
-            "chr1", 3 * 10**8, ref_pos, True, 60,
-        )
-        lines.append(rec.to_line())
-        if rng.random() < 0.3:
-            ov = int(rng.integers(5, max(6, qlen // 2)))
-            dup, dq, dr = _make_record(
-                rng, "bigctg", 10**9, qry_pos + qlen - ov,
-                int(rng.integers(ov + 20, ov + 300)),
-                "chr1", 3 * 10**8, ref_pos + int(rng.integers(2000, 8000)),
-                True, 60,
-            )
-            lines.append(dup.to_line())
-            qry_pos += qlen + dq - ov + int(rng.integers(1, 50))
-            ref_pos += rlen + dr
-        else:
-            qry_pos += qlen + int(rng.integers(1, 50))
-            ref_pos += rlen + int(rng.integers(0, 100))
-    total = qry_pos + 1000
-    fixed = []
-    for line in lines:
-        f = line.split("\t")
-        f[1] = str(total)
-        fixed.append("\t".join(f))
-    return "\n".join(fixed) + "\n"
-
-
-def test_native_big_contig_fast_and_lean(tmp_path, oracle_bin):
+def test_native_big_contig_fast_and_lean(tmp_path, reference_outputs):
     from alignasm_tpu import native
-    from tests.conftest import run_oracle
 
     paf = tmp_path / "big.paf"
-    paf.write_text(_chain_contig(1200))
+    paf.write_text(generate_chain_paf(1200))
     n_records = paf.read_text().count("\n")
     assert n_records >= 1500
 
-    oracle_outs = run_oracle(oracle_bin, paf, tmp_path)
+    gold = reference_outputs(paf, tmp_path)
 
     nat = tmp_path / "nbig.paf"
     nat.write_bytes(paf.read_bytes())
@@ -65,9 +28,9 @@ def test_native_big_contig_fast_and_lean(tmp_path, oracle_bin):
     assert stats["records"] == n_records
     assert elapsed < 5.0, f"big contig took {elapsed:.1f}s"
 
-    for o, suffix in zip(oracle_outs, ("", ".alt", ".all")):
+    for g, suffix in zip(gold, ("", ".alt", ".all")):
         got = (tmp_path / f"nbig.aln{suffix}.paf").read_bytes()
-        assert o.read_bytes() == got, f"aln{suffix} differs on big contig"
+        assert g == got, f"aln{suffix} differs on big contig"
 
 
 def test_parallel_build_byte_identical(tmp_path):
@@ -81,7 +44,7 @@ def test_parallel_build_byte_identical(tmp_path):
 
     # ~55k segments -> ~72k records: over the 64k kParBuildMin gate
     paf = tmp_path / "pbuild.paf"
-    paf.write_text(_chain_contig(55_000, seed=7))
+    paf.write_text(generate_chain_paf(55_000, seed=7))
     n_records = paf.read_text().count("\n")
     assert n_records >= (64 << 10) + 1000
 
@@ -96,30 +59,29 @@ def test_parallel_build_byte_identical(tmp_path):
     assert len((tmp_path / "pbuild.aln.paf").read_bytes()) > 0
 
 
-def test_run_arena_block_crossing_single_worker(tmp_path, oracle_bin):
+def test_run_arena_block_crossing_single_worker(tmp_path, reference_outputs):
     """A single parse worker (-t1) over enough records that its RunArena
     spans multiple 32k-pair blocks, plus PairMap growth and scratch-graph
     reuse across many differently-sized contigs — byte-compared to the
-    oracle.  Guards the block-boundary/rehash/stale-scratch edges of the
+    reference.  Guards the block-boundary/rehash/stale-scratch edges of the
     round-3 allocation structures (types.h RunArena/RunSpan,
     solver.h PairMap, build_graph_into)."""
     from alignasm_tpu import native
     from alignasm_tpu.testing.synth import generate_paf
-    from tests.conftest import run_oracle
 
     paf = tmp_path / "arena.paf"
     paf.write_text(generate_paf(n_contigs=1500, seed=912, max_records_per_contig=24))
     n_records = paf.read_text().count("\n")
     assert n_records > 18_000  # ~15+ runs/record -> several arena blocks
 
-    oracle_outs = run_oracle(oracle_bin, paf, tmp_path)
+    gold = reference_outputs(paf, tmp_path)
     nat = tmp_path / "narena.paf"
     nat.write_bytes(paf.read_bytes())
     stats = native.run(str(nat), threads=1)
     assert stats["records"] == n_records
-    for o, suffix in zip(oracle_outs, ("", ".alt", ".all")):
+    for g, suffix in zip(gold, ("", ".alt", ".all")):
         got = (tmp_path / f"narena.aln{suffix}.paf").read_bytes()
-        assert o.read_bytes() == got, f"aln{suffix} differs"
+        assert g == got, f"aln{suffix} differs"
 
 
 def test_cooperative_big_group_parse_byte_identical(tmp_path):
@@ -135,7 +97,7 @@ def test_cooperative_big_group_parse_byte_identical(tmp_path):
     p = tmp_path / "coop.paf"
     # ~26k segments -> ~34k records: over the 32k-line cooperative
     # threshold, plus a few small contigs around it
-    big = _chain_contig(26_000, seed=21)
+    big = generate_chain_paf(26_000, seed=21)
     small = []
     from alignasm_tpu.testing.synth import generate_paf
 

@@ -1,6 +1,8 @@
-"""SINGLE_PIECE upgrade mode vs a reference build with UPGRADE_MODE
-flipped (tests/oracle/Makefile `single` target) — byte-for-byte on all
-three outputs."""
+"""SINGLE_PIECE / NO_UPDATE upgrade modes vs a reference build with
+UPGRADE_MODE flipped (tests/oracle/Makefile `single` / `noupdate`
+targets) — byte-for-byte on all three outputs.  Where the C++ sources
+are absent, the native and tpu engines are checked against the exact
+engine in the same mode, and the exact engine's own cases skip."""
 
 import pathlib
 import subprocess
@@ -14,12 +16,40 @@ ORACLE_DIR = pathlib.Path(__file__).resolve().parent / "oracle"
 SP_BIN = ORACLE_DIR / "bin" / "alignasm_ref_sp"
 
 
+def _build(binary, target):
+    from tests.reference import reference_src
+
+    if not binary.exists():
+        if not reference_src().is_dir():
+            pytest.skip(f"C++ reference sources not present at "
+                        f"{reference_src()} (tests/oracle/Makefile REF)")
+        subprocess.run(["make", "-C", str(ORACLE_DIR), target],
+                       check=True, capture_output=True)
+    return binary
+
+
 @pytest.fixture(scope="module")
 def sp_oracle():
-    if not SP_BIN.exists():
-        subprocess.run(["make", "-C", str(ORACLE_DIR), "single"],
-                       check=True, capture_output=True)
-    return SP_BIN
+    return _build(SP_BIN, "single")
+
+
+def _gold(request, paf, tmp_path, engine, mode):
+    """The golden outputs of ``paf`` in upgrade ``mode``: the flipped
+    oracle build, or the exact engine when the engine under test is not
+    the exact engine itself."""
+    from tests.reference import oracle_available
+
+    if engine == "exact" or oracle_available():
+        request.getfixturevalue("sp_oracle" if mode == "single_piece"
+                                else "nu_oracle")
+        binary = SP_BIN if mode == "single_piece" else NU_BIN
+        subprocess.run([str(binary), str(paf)], check=True,
+                       capture_output=True)
+        stem = str(paf)[: -len(".paf")]
+        return [pathlib.Path(stem + f".aln{sfx}.paf").read_bytes()
+                for sfx in ("", ".alt", ".all")]
+    return request.getfixturevalue("reference_outputs")(
+        paf, tmp_path, extra=("--upgrade_mode", mode))
 
 
 def _run_sp_oracle(paf: pathlib.Path):
@@ -44,13 +74,14 @@ def _run_engine_sp(paf: pathlib.Path, workdir: pathlib.Path, engine="exact"):
 
 def _assert_identical(oracle_outs, engine_outs):
     for o, e in zip(oracle_outs, engine_outs):
-        ob, eb = o.read_bytes(), e.read_bytes()
+        ob = o if isinstance(o, bytes) else o.read_bytes()
+        eb = e.read_bytes()
         if ob != eb:
             for ln, (lo, le) in enumerate(
                 zip(ob.decode().splitlines(), eb.decode().splitlines())
             ):
-                assert lo == le, f"{o.name} line {ln}:\n oracle: {lo}\n engine: {le}"
-            assert len(ob) == len(eb), f"{o.name}: length differs"
+                assert lo == le, f"{e.name} line {ln}:\n reference: {lo}\n engine: {le}"
+            assert len(ob) == len(eb), f"{e.name}: length differs"
 
 
 @pytest.mark.parametrize("engine,kind,seed", [
@@ -59,11 +90,11 @@ def _assert_identical(oracle_outs, engine_outs):
     ("native", "basic", 7), ("native", "hard", 11), ("native", "hard", 42),
     ("tpu", "basic", 7), ("tpu", "hard", 11),
 ])
-def test_single_piece_byte_identical(sp_oracle, tmp_path, engine, kind, seed):
+def test_single_piece_byte_identical(request, tmp_path, engine, kind, seed):
     gen = generate_paf if kind == "basic" else generate_hard_paf
     paf = tmp_path / f"sp_{kind}{seed}.paf"
     paf.write_text(gen(n_contigs=20, seed=seed))
-    _assert_identical(_run_sp_oracle(paf),
+    _assert_identical(_gold(request, paf, tmp_path, engine, "single_piece"),
                       _run_engine_sp(paf, tmp_path, engine=engine))
 
 
@@ -122,23 +153,17 @@ NU_BIN = ORACLE_DIR / "bin" / "alignasm_ref_nu"
 
 @pytest.fixture(scope="module")
 def nu_oracle():
-    if not NU_BIN.exists():
-        subprocess.run(["make", "-C", str(ORACLE_DIR), "noupdate"],
-                       check=True, capture_output=True)
-    return NU_BIN
+    return _build(NU_BIN, "noupdate")
 
 
 @pytest.mark.parametrize("engine,seed", [
     ("exact", 5), ("native", 13), ("tpu", 5),
 ])
-def test_no_update_byte_identical(nu_oracle, tmp_path, engine, seed):
+def test_no_update_byte_identical(request, tmp_path, engine, seed):
     """no_update vs a reference build with UPGRADE_MODE == NO_UPDATE."""
     paf = tmp_path / f"nu{seed}.paf"
     paf.write_text(generate_hard_paf(n_contigs=15, seed=seed))
-    subprocess.run([str(NU_BIN), str(paf)], check=True, capture_output=True)
-    stem = str(paf)[: -len(".paf")]
-    oracle_outs = [pathlib.Path(stem + f".aln{sfx}.paf")
-                   for sfx in ("", ".alt", ".all")]
+    oracle_outs = _gold(request, paf, tmp_path, engine, "no_update")
     eng = tmp_path / f"eng_nu{seed}.paf"
     eng.write_bytes(paf.read_bytes())
     subprocess.run(
